@@ -3,25 +3,21 @@ from .dp_numpy import align_pair, score_pair  # noqa: F401
 
 
 def best_backend() -> str:
-    """Pick the fastest available scoring backend for this process.
+    """The fastest scoring backend for this process's JAX platform.
 
-    'pallas' on real TPU hardware (the grouped Mosaic kernel); on CPU-only
-    hosts the threaded C++ aligner ('native') when built, else the XLA scan.
+    'pallas' on a GPU: the grouped Pallas-Triton kernel, measured far
+    ahead of the plain XLA scan on an H100 (PERF.md).  On a CPU host the
+    threaded C++ aligner ('native') when it is built, else the XLA scan;
+    'xla' on any other platform.
     """
-    try:
-        import jax
+    import jax
 
-        if jax.devices()[0].platform != "cpu":
-            from . import pallas_sw  # noqa: F401
-
-            return "pallas"
-    except Exception:
-        pass
-    try:
+    platform = jax.devices()[0].platform
+    if platform == "gpu":
+        return "pallas"
+    if platform == "cpu":
         from ..native import load
 
         if load() is not None:
             return "native"
-    except Exception:
-        pass
     return "xla"

@@ -1,7 +1,7 @@
 """Command-line interface.
 
 Mirrors the reference's 19-flag getopt surface (main.cpp:21-42, defaults at
-:68-91, validation at :163-186), plus TPU-native extras (--backend,
+:68-91, validation at :163-186), plus device extras (--backend,
 --platform, --serve).  --cards selects local devices exactly like the
 reference's digit-list parser (main.cpp:254-262) and restricts the
 alignment mesh to them; -t drives the host fan-out and the native engines.
@@ -19,7 +19,7 @@ from .pipeline import PipelineConfig, run_pipeline
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sift4g-tpu",
-        description="SIFT4G on TPU: predicts whether amino-acid substitutions "
+        description="SIFT4G on JAX: predicts whether amino-acid substitutions "
         "are TOLERATED or DELETERIOUS.",
     )
     p.add_argument("-q", "--query", required=True,
@@ -64,11 +64,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "devices 0 and 2; main.cpp:254-262). Default: ALL local "
                    "devices — a deliberate divergence from the reference, "
                    "whose no-cards default is CPU-only (quirk Q10)")
-    # TPU-native extras
+    # device extras
     p.add_argument("--backend", default="auto",
                    choices=["auto", "xla", "numpy", "pallas", "native"],
                    help="alignment scoring backend (default: auto — the "
-                   "Pallas kernel on TPU, the XLA scan elsewhere)")
+                   "Pallas-Triton GPU kernel ('pallas') on a GPU, the "
+                   "threaded C++ aligner ('native') on a CPU host, the "
+                   "plain XLA scan ('xla') elsewhere)")
     p.add_argument("--predict-backend", default="host", choices=["host", "device"],
                    help="prediction math: host (float64 oracle, bit-parity "
                    "default) or device (batched float32 launches for "
@@ -89,11 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="overlap the prefilter scan with device scoring "
                    "(default: auto — on when an accelerator, the parse "
                    "cache, the native engine and >= 8 host cores are all "
-                   "present; the relay client's dispatch work costs about "
-                   "a core while the scan runs)")
+                   "present and --resident-db is not 'on'; launch packing "
+                   "and dispatch cost about a core while the scan runs)")
     p.add_argument("--resident-db", default="auto",
                    choices=["auto", "on", "off"],
-                   help="HBM-resident database scoring: upload slot-packed "
+                   help="device-resident database scoring: upload the "
                    "codes once, ship only offset/length arrays per launch "
                    "(auto: when the pallas path is active and candidate "
                    "bytes exceed the one-time upload)")
@@ -113,20 +115,17 @@ def build_parser() -> argparse.ArgumentParser:
                    "the many-query missense mode)")
     p.add_argument("--serve", default="", metavar="SOCKET",
                    help="run as a long-lived daemon on this UNIX socket, "
-                   "keeping compiled kernels warm across jobs (the remote "
-                   "compile service costs minutes per shape and the "
-                   "persistent cache is inoperative on this deployment)")
+                   "owning the device and keeping compiled kernels and the "
+                   "resident database warm across jobs")
     p.add_argument("--connect", default="", metavar="SOCKET",
                    help="submit this invocation to a --serve daemon "
                    "instead of running locally")
     p.add_argument("--shutdown", action="store_true",
                    help="with --connect: stop the daemon and exit")
     p.add_argument("--platform", default="auto",
-                   help="JAX platform to target (e.g. cpu, tpu). Needed "
-                   "because some deployments pin JAX_PLATFORMS at "
-                   "interpreter startup, which silently overrides the "
-                   "caller's environment; this flag retargets via "
-                   "jax.config before any device is initialized")
+                   help="JAX platform to target: cpu or gpu (default: "
+                   "JAX's own choice); set via jax.config before any "
+                   "device is initialized")
     from . import __version__
 
     p.add_argument("--version", action="version",
@@ -187,6 +186,9 @@ def main(argv=None) -> int:
             jax.config.update("jax_platforms", args.platform)
         except Exception as exc:
             return fail(f"cannot select platform '{args.platform}': {exc}")
+    from .utils import enable_compile_cache
+
+    enable_compile_cache()
 
     # multi-host job? (SIFT4G_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID)
     from .parallel.multihost import init_distributed_from_env

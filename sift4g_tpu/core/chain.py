@@ -5,7 +5,7 @@ integer-code view (swsharp ``chainGetChar`` / ``chainGetCodes``, see call
 sites at reference hash.cpp:25,30 and select_alignments.cpp:208).  Here a
 :class:`Chain` is a lightweight host object whose codes are a NumPy ``uint8``
 array (code = letter - 'A', 0..25), and :class:`ChainBatch` is the padded
-device-friendly batch view (codes matrix + lengths) used by the TPU kernels.
+device-friendly batch view (codes matrix + lengths) used by the device kernels.
 """
 
 from __future__ import annotations

@@ -92,12 +92,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int8), c_i32_p,
     ]
 
-    if hasattr(lib, "sift4g_slot_pack"):  # stale .so tolerance
-        lib.sift4g_slot_pack.restype = None
-        lib.sift4g_slot_pack.argtypes = [
-            c_u8_p, c_i64_p, c_i64, c_u8_p, c_i32_p,
-        ]
-
     lib.sift4g_align_batch.restype = ctypes.c_int
     lib.sift4g_align_batch.argtypes = [
         c_u8_p, c_i32, c_u8_p, c_i64_p, c_i32,   # q, qlen, targets, offsets, n

@@ -2,7 +2,7 @@
 //
 // Produces the edit paths for the <= max_alignments E-value survivors per
 // query — the role swsharp's reconstruct/traceback plays after its scoring
-// kernels (the TPU Pallas/XLA kernels here are score-only; paths for the
+// kernels (the device kernels here are score-only; paths for the
 // few hundred kept pairs are cheapest on host).  Semantics are a line-for-
 // line mirror of the Python oracle align_pair (sift4g_tpu/align/dp_numpy.py):
 // SW#-style affine gaps (gap of length L costs open + (L-1)*extend), the
@@ -268,10 +268,10 @@ void align_one_striped(const sift4g_simd::Profile16& prof, const uint8_t* q,
   traceback_from(HA, ei, ej, m, n, q, t, mat, go, ge, SW, score, out, buf);
 }
 
-// Score-only affine DP in linear memory (two rolling rows) — the honest
-// CPU twin of the TPU scoring kernels (no traceback matrices, no O(mn)
-// memory).  Same recurrences and mode boundaries as align_one / the
-// Pallas kernels; bit-identical scores (property-tested).
+// Score-only affine DP in linear memory (two rolling rows) — the CPU twin
+// of the device scoring kernels (no traceback matrices, no O(mn) memory).
+// Same recurrences and mode boundaries as align_one / the GPU kernel;
+// bit-identical scores (property-tested).
 int32_t score_one(const uint8_t* q, int m, const uint8_t* t, int n,
                   const int32_t* mat, int go, int ge, int mode,
                   std::vector<int32_t>* hbuf, std::vector<int32_t>* fbuf) {

@@ -1,4 +1,4 @@
-// Group-slab packing for the grouped Pallas launches.
+// Group-slab packing for the grouped alignment launches.
 //
 // The Python per-target slice-assignment loop dominates the align phase's
 // dispatch time at high query counts (measured: 15.3 s of a 31.8 s warm
@@ -23,25 +23,6 @@ void sift4g_pack_group(const uint64_t* ptrs, const int32_t* lens, int32_t n,
     if (len > n_pad) len = static_cast<int32_t>(n_pad);
     memcpy(out + static_cast<int64_t>(r) * n_pad, src, len);
     out_lens[r] = len;
-  }
-}
-
-// Slot packing for the HBM-resident database (align/batch.py ResidentDB):
-// every sequence is copied to a 1024-byte-aligned slot start — the Mosaic
-// DMA grain for 1-D u8 HBM slices is 1024 bytes for both offset and size.
-// ``slot_off`` receives each sequence's byte offset in the slotted buffer;
-// the caller sizes ``out`` as total_slots * 1024 (+ tail pad) and
-// zero-fills it beforehand (inter-slot gaps are masked garbage anyway).
-void sift4g_slot_pack(const uint8_t* codes, const int64_t* offsets,
-                      int64_t n_seq, uint8_t* out,
-                      int32_t* slot_off /* (n_seq,) */) {
-  int64_t pos = 0;
-  for (int64_t i = 0; i < n_seq; ++i) {
-    const int64_t len = offsets[i + 1] - offsets[i];
-    slot_off[i] = static_cast<int32_t>(pos);
-    memcpy(out + pos, codes + offsets[i], len);
-    pos += ((len + 1023) / 1024) * 1024;
-    if (len == 0) pos += 1024;  // zero-length records still own a slot
   }
 }
 

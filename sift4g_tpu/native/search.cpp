@@ -180,12 +180,11 @@ inline uint64_t now_cycles() {
 // Back the scan's randomly-probed tables (CSR starts ~108 MB at k=5, the
 // interleaved hit pairs, the presence bitmap) with 2 MB pages via
 // MADV_HUGEPAGE + MADV_COLLAPSE (Linux 6.1+; best-effort, failures leave
-// the scan correct).  OFF by default: on this deployment's VM the hint is
-// a measured NET LOSS at proteome scale (20k q x 2M seqs, interleaved
-// pairs: gather cycles -32% as the TLB model predicts, but score+merge
-// regress more, total 40-49 s -> 61-69 s; guest-huge pages over host
-// 4 KiB EPT is the suspected mechanism — see docs/PLATFORM.md).  Bare-
-// metal hosts with THP=madvise can enable with SIFT4G_TPU_THP=1.
+// the scan correct).  OFF by default: on a virtualized host the hint was
+// a measured net loss at proteome scale (gather cycles fell as the TLB
+// model predicts, but score+merge regressed more; guest-huge pages over
+// host 4 KiB EPT is the suspected mechanism).  Bare-metal hosts with
+// THP=madvise can enable with SIFT4G_TPU_THP=1.
 #if defined(__linux__)
 inline void thp_hint(const void* p, size_t n) {
   static const bool on = [] {

@@ -5,7 +5,8 @@ fan-out over database ranges with a host-side top-k merge
 (reference database_search.cpp:101-154).  The multi-host mapping:
 
 * one process per host, joined with ``jax.distributed.initialize`` (Gloo
-  collectives on CPU test meshes, ICI/DCN on real pods);
+  collectives on CPU test meshes, the accelerator's own transport on
+  real hosts);
 * the database is split into record-aligned, residue-balanced contiguous
   shards; host ``h`` streams ONLY its shard (free seek through the .s4gc
   parse cache) with global record indices;
@@ -59,22 +60,10 @@ def init_distributed_from_env() -> Optional[HostContext]:
     """Join the multi-host job described by SIFT4G_COORDINATOR /
     SIFT4G_NUM_PROCESSES / SIFT4G_PROCESS_ID; None when not configured.
 
-    ``SIFT4G_MULTIHOST=auto`` instead joins a real TPU pod slice:
-    ``jax.distributed.initialize()`` with no arguments discovers the
-    coordinator and process layout from the TPU runtime metadata (the
-    standard one-process-per-host pod launch; docs/MULTIHOST.md recipe).
-
     Must run before any JAX device use.  On CPU platforms the Gloo
     cross-process collective backend is selected (the virtual test mesh);
-    TPU pods use their native ICI/DCN transport.
+    accelerators use their own transport.
     """
-    if os.environ.get("SIFT4G_MULTIHOST") == "auto":
-        import jax
-
-        jax.distributed.initialize()
-        if jax.process_count() <= 1:
-            return None
-        return HostContext(jax.process_index(), jax.process_count())
     coord = os.environ.get("SIFT4G_COORDINATOR")
     if not coord:
         return None
@@ -87,7 +76,7 @@ def init_distributed_from_env() -> Optional[HostContext]:
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:
-        pass  # option renamed/absent: TPU transports need no selection
+        pass  # option renamed/absent: accelerator transports need none
     jax.distributed.initialize(
         coordinator_address=coord, num_processes=nproc, process_id=pid
     )

@@ -1,5 +1,5 @@
 """Substitution-mode prediction at proteome scale: device-f32 screen +
-sparse host-f64 exact scoring (VERDICT r4 item 1).
+sparse host-f64 exact scoring.
 
 The reference's product mode scores a user substitution list against the
 float64 SIFT matrix (sift_prediction.cpp:220-230, sift_scores.cpp:247-314);

@@ -2,15 +2,16 @@
 
 Functional mirror of the float64 NumPy oracle in scores.py (which remains
 the bit-parity path for file output — reference sift_scores.cpp computes
-in double).  This variant exists for on-device batched scoring: everything
-is one-hot matmuls and elementwise ops — **no gathers** (XLA's TPU gather
-lowering runs on the scalar core; measured ~2.3 ms for even a (256, 512)
-32-entry LUT on v5e, slower than an entire alignment batch) — so it vmaps
-cleanly over queries padded to a common length.
+in double).  This variant exists for on-device batched scoring: one-hot
+contractions and elementwise ops that XLA fuses, vmapped over queries
+padded to a common length.
 
-Numerics: float32 by default; agreement with the float64 oracle is asserted
-to ~1e-4 relative in tests (adequate for 4-decimal SIFT scores; the file
-writers keep using the oracle).
+Numerics: float32; agreement with the float64 oracle is asserted to ~1e-4
+relative in tests (adequate for 4-decimal SIFT scores; the file writers
+keep using the oracle).  Every contraction pins ``HIGHEST`` precision: a
+GPU may otherwise run float32 matmuls in TF32 (~3 decimal digits), far
+looser than the ~1e-5 agreement the subst screen relies on
+(predict_subst.py).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 from ..constants import DIRI_ALPHA, DIRI_ALTOT, DIRI_Q, RANK_MATRIX, VALID_AA_MASK
 
 X_CODE = ord("X") - ord("A")
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _onehot_valid(rows: jnp.ndarray) -> jnp.ndarray:
@@ -37,7 +39,8 @@ def create_matrix(rows: jnp.ndarray, weights: jnp.ndarray):
     rows (n, L) int; weights (n,) -> (matrix (L, 26), tot (L,)).
     """
     oh = _onehot_valid(rows)
-    matrix = jnp.einsum("s,sla->la", weights.astype(jnp.float32), oh)
+    matrix = jnp.einsum("s,sla->la", weights.astype(jnp.float32), oh,
+                        precision=HIGHEST)
     return matrix, matrix.sum(axis=1)
 
 
@@ -52,7 +55,8 @@ def calc_seq_weights(rows: jnp.ndarray, raw_matrix: jnp.ndarray, n_valid=None):
     valid = jnp.asarray(VALID_AA_MASK, jnp.bool_)
     ndiff = ((raw_matrix > 0.0) & valid[None, :]).sum(axis=1).astype(jnp.float32)
     oh = _onehot_valid(rows)                                   # (n, L, 26)
-    counts_at = jnp.einsum("sla,la->sl", oh, raw_matrix)       # raw[l, rows[s,l]]
+    counts_at = jnp.einsum("sla,la->sl", oh, raw_matrix,
+                           precision=HIGHEST)                  # raw[l, rows[s,l]]
     ok = (counts_at > 0.0)
     denom = jnp.where(ok, ndiff[None, :] * counts_at, 1.0)
     w = jnp.where(ok, 1.0 / denom, 0.0).sum(axis=1)
@@ -67,7 +71,8 @@ def calc_epsilon(weighted: jnp.ndarray, max_aa_onehot: jnp.ndarray, ndiff: jnp.n
     max_aa_onehot: (L, 26) one-hot of the per-position max aa (avoids the
     RANK_MATRIX row gather).
     """
-    ranks = max_aa_onehot @ jnp.asarray(RANK_MATRIX, jnp.float32)  # (L, 26)
+    ranks = jnp.matmul(max_aa_onehot, jnp.asarray(RANK_MATRIX, jnp.float32),
+                       precision=HIGHEST)                          # (L, 26)
     validf = jnp.asarray(VALID_AA_MASK, jnp.float32)
     wv = weighted * validf[None, :]
     num = (ranks * wv).sum(axis=1)
@@ -103,7 +108,8 @@ def calc_diri(weighted: jnp.ndarray) -> jnp.ndarray:
     probn = probn + (term * validf[None, None, :]).sum(axis=2)
     denom = jax.scipy.special.logsumexp(logq[:, None] + probn, axis=0)  # (L,)
     probj = jnp.exp(logq[:, None] + probn - denom[None, :])             # (13, L)
-    diric = jnp.einsum("jl,ja->la", probj, alpha) * validf[None, :]
+    diric = jnp.einsum("jl,ja->la", probj, alpha,
+                       precision=HIGHEST) * validf[None, :]
     totreg = diric.sum(axis=1)
     return diric / jnp.where(totreg == 0, 1.0, totreg)[:, None]
 

@@ -1,6 +1,6 @@
 """Independent second oracle: literal scalar transcription of the reference.
 
-VERDICT r1 item 7: the frozen goldens in tests/golden were produced by the
+the frozen goldens in tests/golden were produced by the
 framework's own (vectorized) float64 path, so any misreading of the C++
 would be locked in.  This module is a deliberately literal, loop-for-loop
 Python transcription of the reference semantics, written FRESH from the C++

@@ -1,10 +1,10 @@
-"""BatchAligner backends agree (numpy vs xla vs pallas-grouped), CPU interpret."""
+"""BatchAligner backends agree (numpy vs xla vs the grouped GPU kernel in
+interpret mode)."""
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
-from jax.experimental.pallas import tpu as pltpu
 
 from sift4g_tpu.align.batch import BatchAligner
 from sift4g_tpu.core.scorers import create_scorer
@@ -24,20 +24,20 @@ def _items(rng, n_queries=3, per_query=(0, 5, 23)):
 
 
 def test_long_targets_route_through_chunked_kernel():
-    """Targets past the VMEM planes budget use the column-chunked kernel."""
+    """Long targets ride the same grouped kernel (their rung's longer
+    column loop) next to short ones, exact against the oracle."""
     rng = np.random.default_rng(5)
     scorer = create_scorer("BLOSUM_62", 10, 1)
     q = rng.integers(0, 26, 70).astype(np.uint8)
     targets = [
-        rng.integers(0, 26, 2500).astype(np.uint8),   # long: chunked kernel
-        rng.integers(0, 26, 3100).astype(np.uint8),   # long
-        rng.integers(0, 26, 140).astype(np.uint8),    # short: grouped kernel
+        rng.integers(0, 26, 2500).astype(np.uint8),   # long rung
+        rng.integers(0, 26, 3100).astype(np.uint8),   # long rung
+        rng.integers(0, 26, 140).astype(np.uint8),    # short rung
     ]
     ref = BatchAligner(scorer, backend="numpy").scores_many([(q, targets)])[0]
-    with pltpu.force_tpu_interpret_mode():
-        al = BatchAligner(scorer, backend="pallas", batch=8)
-        al._mesh = None
-        got = al.scores_many([(q, targets)])[0]
+    al = BatchAligner(scorer, backend="pallas", b_cap=8)
+    al._mesh = None
+    got = al.scores_many([(q, targets)])[0]
     np.testing.assert_array_equal(got, ref)
 
 
@@ -48,12 +48,10 @@ def test_backends_agree_scores_many(mode):
     scorer = create_scorer("BLOSUM_62", 10, 1)
 
     ref = BatchAligner(scorer, mode=mode, backend="numpy").scores_many(items)
-    got_xla = BatchAligner(scorer, mode=mode, backend="xla", batch=8).scores_many(items)
-    with pltpu.force_tpu_interpret_mode():
-        # pallas grouped path only runs without a mesh; build on 1 device
-        al = BatchAligner(scorer, mode=mode, backend="pallas", batch=8)
-        al._mesh = None
-        got_pl = al.scores_many(items)
+    got_xla = BatchAligner(scorer, mode=mode, backend="xla", b_cap=8).scores_many(items)
+    al = BatchAligner(scorer, mode=mode, backend="pallas", b_cap=8)
+    al._mesh = None  # single-device path
+    got_pl = al.scores_many(items)
     for r, x, p in zip(ref, got_xla, got_pl):
         np.testing.assert_array_equal(x, r)
         np.testing.assert_array_equal(p, r)
@@ -101,8 +99,8 @@ def test_tail_policy_pow2_scores_identical():
     al_full = BatchAligner(scorer, backend="pallas", b_cap=512,
                            tail_policy="full")
     assert al_full._group_width(188, 512) == 512
-    # pow2 is the production default (chip A/B 2026-08-19, PLATFORM.md);
-    # shield the assertion from a developer's A/B env var
+    # pow2 is the production default; shield the assertion from a
+    # developer's control env var
     import os
     from unittest import mock
 

@@ -52,12 +52,14 @@ def test_batch_aligner_honors_cards():
         BatchAligner(scorer, backend="xla", cards=(42,))
 
 
-def test_cli_rejects_nondigit_cards(capsys):
+def test_cli_rejects_nondigit_cards(capsys, tmp_path):
     from sift4g_tpu.cli import main
 
+    (tmp_path / "q.fa").write_text(">q\nMKTAYIAKQR\n")
+    (tmp_path / "db.fa").write_text(">t\nMKTAYIAKQR\n")
     rc = main([
-        "-q", os.path.join(TEST_FILES, "query.fasta"),
-        "-d", os.path.join(TEST_FILES, "sample_protein_database.fa"),
+        "-q", str(tmp_path / "q.fa"),
+        "-d", str(tmp_path / "db.fa"),
         "--cards", "0,2",
     ])
     assert rc == -1

@@ -121,7 +121,7 @@ def test_xla_scores_match_oracle(mode):
     from sift4g_tpu.align.batch import BatchAligner
 
     scorer = create_scorer("BLOSUM_62", 10, 1)
-    aligner = BatchAligner(scorer, mode=mode, backend="xla", batch=16,
+    aligner = BatchAligner(scorer, mode=mode, backend="xla", b_cap=16,
                            q_bucket=16, t_bucket=32)
     q = random_seq(33)
     targets = [random_seq(int(rng.integers(1, 60))) for _ in range(23)]

@@ -1,6 +1,6 @@
 """Multi-host harness: 2 processes x 4 virtual devices, byte-identical output.
 
-VERDICT r1 item 2: real ``jax.distributed.initialize`` (Gloo collectives),
+real ``jax.distributed.initialize`` (Gloo collectives),
 record-aligned per-host database shards with global index offsets, O(k)
 candidate/winner merges under the (score desc, id asc) total order, host-0
 only writers — and the outputs must byte-equal the single-process run on
@@ -194,11 +194,10 @@ def test_multihost_query_sharded_matches_goldens(tmp_path):
 
 
 def test_multihost_screened_resident_matches_oracle(tmp_path):
-    """VERDICT r3 item 8 / r4 item 8: the multihost workload must cover
-    the production screened + resident + DEVICE-PREDICT config.  2 hosts
-    run backend=pallas (grouped twin via SIFT4G_TPU_GROUPED_IMPL=xla —
-    Mosaic interpret under shard_map is pathologically slow on CPU
-    meshes) with --resident-db on, device-side screening active
+    """The multihost workload covers the production screened + resident +
+    DEVICE-PREDICT config.  2 hosts run backend=pallas (the GPU kernel in
+    interpret mode on CPU meshes) with --resident-db on, device-side
+    screening active
     (default), and --predict-backend device; the queries carry .subst
     files so the device path is the f32-screen + sparse-f64 hybrid whose
     outputs are byte-identical — everything must byte-equal a
@@ -233,7 +232,6 @@ def test_multihost_screened_resident_matches_oracle(tmp_path):
          "--backend", "pallas", "--resident-db", "on",
          "--subst", str(data), "--predict-backend", "device",
          "--max-candidates", "300", "--sub-results"],
-        extra_env={"SIFT4G_TPU_GROUPED_IMPL": "xla"},
     )
 
     # the run manifest (.sift4g_tpu_run.json) is written by run_pipeline

@@ -108,7 +108,7 @@ class _RecordingLib:
 def test_configured_thread_count_reaches_native_engines(monkeypatch):
     """-t must reach traceback AND scoring (reference honors -t everywhere
     via its pool, main.cpp:188 + database_search.cpp:101-123) — and the
-    outputs must not depend on it (VERDICT r2 item 5)."""
+    outputs must not depend on it."""
     from sift4g_tpu.align.batch import BatchAligner, align_pairs_batch as apb
     import sift4g_tpu.native as native_mod
 

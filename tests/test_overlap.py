@@ -1,6 +1,6 @@
 """Overlapped pipeline (prefilter + provisional scoring) == two-phase.
 
-VERDICT r1 item 4: the overlap must not change ANY output byte.  The
+the overlap must not change ANY output byte.  The
 synthetic run forces many small search chunks and a small max_candidates
 so later chunks evict earlier provisional candidates — exercising the
 superset-then-drop merge logic.
@@ -92,9 +92,9 @@ def test_overlap_auto_gates_off_without_cache(tmp_path, monkeypatch):
 
 
 def test_overlap_auto_gates_on_core_count(tmp_path, monkeypatch):
-    """auto resolves OFF below 8 host cores (the relay client's dispatch
-    work costs ~a core while the scan runs — measured net loss on a
-    4-core host, docs/PLATFORM.md); explicit "on" is not core-gated."""
+    """auto resolves OFF below 8 host cores (launch packing and dispatch
+    cost ~a core while the scan runs); explicit "on" is not
+    core-gated."""
     import sift4g_tpu.pipeline as P
 
     q, db = _make_db(tmp_path, n_db=50)
@@ -119,7 +119,7 @@ def test_overlap_auto_gates_on_core_count(tmp_path, monkeypatch):
 
 
 def test_overlap_refuses_at_many_query_scale(tmp_path):
-    """VERDICT r2 item 7: prov would need n_queries * max_candidates dict
+    """prov would need n_queries * max_candidates dict
     entries; above the budget the overlap refuses LOUDLY under `on` and
     the pipeline falls back to two-phase."""
     import io

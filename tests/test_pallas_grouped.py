@@ -1,85 +1,57 @@
-"""Grouped Pallas kernel == per-call kernel / XLA scan (interpret mode)."""
+"""Grouped GPU kernel == NumPy oracle (interpret mode): strip boundaries,
+padding lanes, uninitialized tails and the kernel's tuning variants."""
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
-from jax.experimental.pallas import tpu as pltpu
 
-from sift4g_tpu.align.xla import PAD_CODE, _extend_matrix, align_scores_kernel
+from sift4g_tpu.align.dp_numpy import score_pair
+from sift4g_tpu.align.pallas_sw import ROWS, sw_scores_pallas_grouped
+from sift4g_tpu.align.xla import PAD_CODE, _extend_matrix
 from sift4g_tpu.core.scorers import create_scorer
 
 
 @pytest.mark.parametrize("mode", ["SW", "NW", "HW", "OV"])
 def test_grouped_matches_xla(mode):
-    from sift4g_tpu.align.pallas_sw import sw_scores_pallas_grouped
-
     rng = np.random.default_rng(13)
-    G, B, N, m_pad = 3, 8, 128, 64
-    qlens = np.array([51, 17, 64], dtype=np.int32)  # mod-4 classes 3/1/0
+    # B=12 is no power of two: the wrapper pads lanes to the program block
+    G, B, N, m_pad = 3, 12, 128, 2 * ROWS
+    # lengths around the register strip: a full strip plus 3 single rows,
+    # a query shorter than one strip, and exactly two strips
+    qlens = np.array([ROWS + 3, 5, 2 * ROWS], dtype=np.int32)
     q_all = np.full(G * m_pad, PAD_CODE, dtype=np.int32)
     q_offsets = (np.arange(G) * m_pad).astype(np.int32)
     for g in range(G):
         q_all[g * m_pad : g * m_pad + qlens[g]] = rng.integers(0, 26, qlens[g])
-    targets = np.full((G, B, N), PAD_CODE, dtype=np.int32)
+    # uninitialized tails: arbitrary int8 bytes past every target's length
+    targets = rng.integers(-128, 128, size=(G, B, N)).astype(np.int8)
     lens = rng.integers(1, N + 1, size=(G, B)).astype(np.int32)
+    lens[0, 0] = N
+    lens[1, 1] = 1
     for g in range(G):
         for b in range(B):
             targets[g, b, : lens[g, b]] = rng.integers(0, 26, lens[g, b])
 
     scorer = create_scorer("BLOSUM_62", 10, 1)
     m32 = _extend_matrix(scorer.matrix)
-
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            sw_scores_pallas_grouped(
-                q_all, q_offsets, qlens, targets, lens, m32, mode=mode
-            )
+    kw = dict(mode=mode)
+    got = np.asarray(
+        sw_scores_pallas_grouped(q_all, q_offsets, qlens, targets, lens, m32, **kw)
+    )
+    # tuning variants are bit-identical: one-row strips, 4-row strips,
+    # and 8-lane programs (several programs per group)
+    for variant in (dict(rows=1), dict(rows=4), dict(block=8, num_warps=1)):
+        np.testing.assert_array_equal(
+            np.asarray(sw_scores_pallas_grouped(
+                q_all, q_offsets, qlens, targets, lens, m32, **kw, **variant
+            )),
+            got, err_msg=str(variant),
         )
-        # int16 accumulator path, explicitly engaged (acc="i16" asserts the
-        # static bounds make it admissible and runs rotate-free)
-        got16 = np.asarray(
-            sw_scores_pallas_grouped(
-                q_all, q_offsets, qlens, targets, lens, m32, mode=mode,
-                max_qlen=64, max_sub=int(scorer.matrix.max()), acc="i16",
-            )
-        )
-        # concat-shift prefix-max variant
-        got_cs = np.asarray(
-            sw_scores_pallas_grouped(
-                q_all, q_offsets, qlens, targets, lens, m32, mode=mode,
-                shift_impl="concat",
-            )
-        )
-        # single-row loop vs the two-row production default (qlens cover
-        # odd 17/51 and even 64 — both the paired body and the pl.when
-        # odd-tail row of the unroll=2 default)
-        got_u1 = np.asarray(
-            sw_scores_pallas_grouped(
-                q_all, q_offsets, qlens, targets, lens, m32, mode=mode,
-                unroll=1,
-            )
-        )
-        # four-row unroll (qlens hit remainder classes 3, 1 and 0)
-        got_u4 = np.asarray(
-            sw_scores_pallas_grouped(
-                q_all, q_offsets, qlens, targets, lens, m32, mode=mode,
-                unroll=4,
-            )
-        )
-    np.testing.assert_array_equal(got16, got)
-    np.testing.assert_array_equal(got_cs, got)
-    np.testing.assert_array_equal(got_u1, got)
-    np.testing.assert_array_equal(got_u4, got)
     for g in range(G):
-        ref = np.asarray(
-            align_scores_kernel(
-                q_all[g * m_pad : (g + 1) * m_pad],
-                np.int32(qlens[g]),
-                targets[g],
-                lens[g],
-                m32,
-                mode=mode,
-            )
-        )
-        np.testing.assert_array_equal(got[g], ref, err_msg=f"group {g} mode {mode}")
+        q = q_all[g * m_pad : g * m_pad + qlens[g]].astype(np.uint8)
+        want = [
+            score_pair(q, targets[g, b, : lens[g, b]].astype(np.uint8), scorer, mode)
+            for b in range(B)
+        ]
+        np.testing.assert_array_equal(got[g], want, err_msg=f"group {g} mode {mode}")

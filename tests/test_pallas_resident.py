@@ -1,12 +1,10 @@
-"""HBM-resident grouped kernel: exact equality with the slab kernel.
+"""Device-resident grouped kernel: exact equality with the slab kernel.
 
-The resident variant assembles target slabs in-kernel by per-row
-dynamic-offset DMA from a flat database codes array (pallas_sw.py
-``sw_scores_pallas_grouped_resident``).  Its correctness contract is
-bit-equality with ``sw_scores_pallas_grouped`` fed the same windows —
-including the garbage bytes past each row's length (the DP output is
-length-masked; same invariant as the native packer's uninitialized
-tails).
+The resident variant reads each target at its element offset in a flat
+database codes array (pallas_sw.py ``sw_scores_pallas_grouped_resident``)
+instead of from a host-shipped (G, B, N) slab.  Its correctness contract
+is bit-equality with ``sw_scores_pallas_grouped`` fed the same targets,
+reading only the bytes inside each target's length.
 """
 
 import numpy as np
@@ -14,7 +12,6 @@ import pytest
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from sift4g_tpu.align.pallas_sw import (
     PAD_CODE,
@@ -25,28 +22,36 @@ from sift4g_tpu.align.xla import _extend_matrix
 from sift4g_tpu.core.scorers import create_scorer
 
 
-@pytest.mark.parametrize("dma_pipeline", [True, False])
+@pytest.mark.parametrize("layout", ["packed", "gapped"])
 @pytest.mark.parametrize("mode", ["SW", "NW", "HW", "OV"])
-def test_resident_equals_slab_kernel(mode, dma_pipeline):
+def test_resident_equals_slab_kernel(mode, layout):
+    """``packed``: targets back to back, as ResidentDB stores them;
+    ``gapped``: arbitrary offsets with garbage between targets."""
     rng = np.random.default_rng(11)
     G, B, N, mq = 2, 8, 128, 64
     scorer = create_scorer("BLOSUM_62", 10, 1)
     m32 = jnp.asarray(_extend_matrix(scorer.matrix))
 
-    R = 5000
-    db = rng.integers(0, 26, R).astype(np.uint8)
-    # pad to a 1024 multiple: the resident array reshapes to (slots, 8, 128)
-    db_pad = np.concatenate([db, np.zeros((-R % 1024) + 4096, np.uint8)])
-    starts = (rng.integers(0, R // 1024 + 1, (G, B)) * 1024).astype(np.int32)  # slot grain
     lens = rng.integers(1, N + 1, (G, B)).astype(np.int32)
     lens[0, 0] = 0  # empty-target row
+    if layout == "packed":
+        starts = np.concatenate(([0], np.cumsum(lens.reshape(-1))[:-1]))
+        starts = starts.astype(np.int32).reshape(G, B)
+        db = rng.integers(0, 26, int(lens.sum())).astype(np.uint8)
+    else:
+        R = 5000
+        db = rng.integers(0, 256, R).astype(np.uint8)  # garbage everywhere
+        starts = rng.integers(0, R - N, (G, B)).astype(np.int32)
+        for g in range(G):
+            for b in range(B):
+                s0 = starts[g, b]
+                db[s0 : s0 + lens[g, b]] = rng.integers(0, 26, lens[g, b])
 
-    # slab twin: the full N-window from the flat array (garbage tails and
-    # all) — the resident kernel must see exactly these bytes
-    tg = np.empty((G, B, N), np.int8)
+    # slab twin: the same targets, PAD past each length
+    tg = np.full((G, B, N), PAD_CODE, np.int8)
     for g in range(G):
         for b in range(B):
-            tg[g, b, :] = db_pad[starts[g, b] : starts[g, b] + N]
+            tg[g, b, : lens[g, b]] = db[starts[g, b] : starts[g, b] + lens[g, b]]
 
     q = np.full(G * mq, PAD_CODE, np.int32)
     qo = (np.arange(G) * mq).astype(np.int32)
@@ -55,56 +60,49 @@ def test_resident_equals_slab_kernel(mode, dma_pipeline):
         q[g * mq : g * mq + ql[g]] = rng.integers(0, 26, ql[g])
 
     kw = dict(mode=mode, gap_open=10, gap_extend=1)
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(
-            sw_scores_pallas_grouped(
-                jnp.asarray(q), jnp.asarray(qo), jnp.asarray(ql),
-                jnp.asarray(tg), jnp.asarray(lens), m32, **kw
-            )
+    want = np.asarray(
+        sw_scores_pallas_grouped(
+            jnp.asarray(q), jnp.asarray(qo), jnp.asarray(ql),
+            jnp.asarray(tg), jnp.asarray(lens), m32, **kw
         )
-        got = np.asarray(
-            sw_scores_pallas_grouped_resident(
-                jnp.asarray(q), jnp.asarray(qo), jnp.asarray(ql),
-                jnp.asarray(db_pad), jnp.asarray(starts), jnp.asarray(lens),
-                m32, N, dma_pipeline=dma_pipeline, **kw
-            )
+    )
+    got = np.asarray(
+        sw_scores_pallas_grouped_resident(
+            jnp.asarray(q), jnp.asarray(qo), jnp.asarray(ql),
+            jnp.asarray(db), jnp.asarray(starts), jnp.asarray(lens),
+            m32, N, **kw
         )
-    np.testing.assert_array_equal(got, want)
+    )
+    np.testing.assert_array_equal(got[lens > 0], want[lens > 0])
 
 
-def test_resident_n1536_two_slot_window():
-    """The N=1536 rung (targets 1025..1536 aa) spans TWO 1024-byte slots:
-    regression for the floor ns=N//1024 that staged only the first slot."""
+def test_resident_reads_only_inside_lengths():
+    """Targets ending at the very last byte of the device array, with a
+    length rung far past it: the kernel reads nothing beyond a target's
+    length, so the array needs no tail padding."""
     from sift4g_tpu.align.dp_numpy import score_pair
-    from sift4g_tpu.align.batch import ResidentDB
 
     rng = np.random.default_rng(17)
     B, N, mq = 8, 1536, 64
     scorer = create_scorer("BLOSUM_62", 10, 1)
     m32 = jnp.asarray(_extend_matrix(scorer.matrix))
-
-    lens_seq = rng.integers(1025, N + 1, B).astype(np.int64)
+    lens_seq = rng.integers(20, 120, B).astype(np.int64)
     offsets = np.concatenate(([0], np.cumsum(lens_seq)))
     db = rng.integers(0, 26, int(offsets[-1])).astype(np.uint8)
-    rdb = ResidentDB(db, offsets)
 
-    starts = rdb.slot_off.astype(np.int32).reshape(1, B)
-    lens = lens_seq.astype(np.int32).reshape(1, B)
     qlen = 32
     q = np.full(mq, PAD_CODE, np.int32)
     qcodes = rng.integers(0, 26, qlen).astype(np.uint8)
     q[:qlen] = qcodes
-
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            sw_scores_pallas_grouped_resident(
-                jnp.asarray(q), jnp.zeros(1, jnp.int32),
-                jnp.asarray(np.array([qlen], np.int32)),
-                jnp.asarray(rdb.host_slotted), jnp.asarray(starts),
-                jnp.asarray(lens), m32, N, mode="SW", gap_open=10,
-                gap_extend=1,
-            )
-        )[0]
+    got = np.asarray(
+        sw_scores_pallas_grouped_resident(
+            jnp.asarray(q), jnp.zeros(1, jnp.int32),
+            jnp.asarray(np.array([qlen], np.int32)),
+            jnp.asarray(db), jnp.asarray(offsets[:-1].astype(np.int32)[None]),
+            jnp.asarray(lens_seq.astype(np.int32)[None]), m32, N,
+            mode="SW", gap_open=10, gap_extend=1,
+        )
+    )[0]
     for b in range(B):
         t = db[offsets[b] : offsets[b + 1]]
         assert got[b] == score_pair(qcodes, t, scorer, "SW"), b
@@ -112,46 +110,38 @@ def test_resident_n1536_two_slot_window():
 
 def test_resident_matches_oracle_scores():
     """End-to-end exactness: resident scores == NumPy DP oracle on real
-    (start, len) rows of a synthetic database (not just slab parity)."""
+    (start, len) rows of a ResidentDB (not just slab parity)."""
+    from sift4g_tpu.align.batch import ResidentDB
     from sift4g_tpu.align.dp_numpy import score_pair
 
     rng = np.random.default_rng(12)
-    G, B, N, mq = 1, 8, 128, 64
+    B, N, mq = 8, 128, 64
     scorer = create_scorer("BLOSUM_62", 10, 1)
     m32 = jnp.asarray(_extend_matrix(scorer.matrix))
 
     lens_seq = rng.integers(10, N, 32).astype(np.int64)
     offsets = np.concatenate(([0], np.cumsum(lens_seq)))
-    R = int(offsets[-1])
-    db = rng.integers(0, 26, R).astype(np.uint8)
-
-    # slot-pack (the ResidentDB layout): every sequence starts at a
-    # 1024-byte boundary — the Mosaic DMA grain for offsets and sizes
-    from sift4g_tpu.align.batch import ResidentDB
-
+    db = rng.integers(0, 26, int(offsets[-1])).astype(np.uint8)
     rdb = ResidentDB(db, offsets)
-    db_pad = rdb.host_slotted
 
     sel = rng.choice(32, B, replace=False)
-    starts = rdb.slot_off[sel].astype(np.int32).reshape(1, B)
+    starts = rdb.offsets[sel].astype(np.int32).reshape(1, B)
     lens = lens_seq[sel].astype(np.int32).reshape(1, B)
 
     qlen = 40
     q = np.full(mq, PAD_CODE, np.int32)
     qcodes = rng.integers(0, 26, qlen).astype(np.uint8)
     q[:qlen] = qcodes
-
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            sw_scores_pallas_grouped_resident(
-                jnp.asarray(q), jnp.zeros(1, jnp.int32),
-                jnp.asarray(np.array([qlen], np.int32)),
-                jnp.asarray(db_pad), jnp.asarray(starts), jnp.asarray(lens),
-                m32, N, mode="SW", gap_open=10, gap_extend=1,
-            )
-        )[0]
+    got = np.asarray(
+        sw_scores_pallas_grouped_resident(
+            jnp.asarray(q), jnp.zeros(1, jnp.int32),
+            jnp.asarray(np.array([qlen], np.int32)),
+            rdb.dev[0], jnp.asarray(starts), jnp.asarray(lens),
+            m32, N, mode="SW", gap_open=10, gap_extend=1,
+        )
+    )[0]
     for b in range(B):
-        t = db_pad[starts[0, b] : starts[0, b] + lens[0, b]]
+        t = db[starts[0, b] : starts[0, b] + lens[0, b]]
         want = score_pair(qcodes, t, scorer, "SW")
         assert got[b] == want, (b, got[b], want)
 
@@ -159,7 +149,6 @@ def test_resident_matches_oracle_scores():
 def test_batch_aligner_resident_path():
     """BatchAligner with a ResidentDB ships offsets (the resident kernel)
     and scores bit-equal to the numpy oracle backend."""
-    import sift4g_tpu.align.batch as batch_mod
     from sift4g_tpu.align.batch import BatchAligner, ResidentDB
 
     rng = np.random.default_rng(21)
@@ -179,6 +168,7 @@ def test_batch_aligner_resident_path():
     )[0]
 
     calls = {"resident": 0}
+    import sift4g_tpu.align.batch as batch_mod
     import sift4g_tpu.align.pallas_sw as psw
     orig = psw.sw_scores_pallas_grouped_resident
 
@@ -187,25 +177,28 @@ def test_batch_aligner_resident_path():
         return orig(*a, **k)
 
     psw.sw_scores_pallas_grouped_resident = spy
+    saved = dict(batch_mod._GROUPED_SINGLE_CACHE)
+    batch_mod._GROUPED_SINGLE_CACHE.clear()  # trace anew through the spy
     try:
-        with pltpu.force_tpu_interpret_mode():
-            al = BatchAligner(scorer, backend="pallas", b_cap=256, resident=rdb)
-            al._mesh = None  # single-chip path (tests run an 8-dev CPU mesh)
-            got = al.scores_many(items)[0]
+        al = BatchAligner(scorer, backend="pallas", b_cap=256, resident=rdb)
+        al._mesh = None  # single-device path (tests run an 8-dev CPU mesh)
+        got = al.scores_many(items)[0]
     finally:
         psw.sw_scores_pallas_grouped_resident = orig
+        batch_mod._GROUPED_SINGLE_CACHE.clear()
+        batch_mod._GROUPED_SINGLE_CACHE.update(saved)
     np.testing.assert_array_equal(got, want)
     assert calls["resident"] >= 1, "resident kernel was not used"
 
 
 def test_segmented_resident_db(monkeypatch):
-    """Databases beyond one segment's capacity split into < 2 GiB HBM
+    """Databases beyond one segment's capacity split into < 2 GiB device
     segments; launches ship segment-LOCAL offsets against the right
     segment array and still score bit-equal to the numpy oracle."""
     from sift4g_tpu.align.batch import BatchAligner, ResidentDB
 
-    monkeypatch.setattr(ResidentDB, "SEG_CAP", 8 * 1024)  # 8 slots/segment
-    monkeypatch.setattr(ResidentDB, "DEV_GRAIN", 16 * 1024)  # 2 rungs/seg
+    monkeypatch.setattr(ResidentDB, "SEG_CAP", 600)       # ~8 seqs/segment
+    monkeypatch.setattr(ResidentDB, "DEV_GRAIN", 512)     # 1-2 rungs/seg
 
     rng = np.random.default_rng(33)
     scorer = create_scorer("BLOSUM_62", 10, 1)
@@ -213,15 +206,13 @@ def test_segmented_resident_db(monkeypatch):
     offsets = np.concatenate(([0], np.cumsum(lens_seq)))
     db = rng.integers(0, 26, int(offsets[-1])).astype(np.uint8)
     rdb = ResidentDB(db, offsets)
-    assert rdb.n_segs == 8, rdb.n_segs
-    # layout: every sequence's bytes land at its global slot offset
-    for i in range(64):
-        got = rdb.host_slotted[rdb.slot_off[i] : rdb.slot_off[i] + lens_seq[i]]
-        np.testing.assert_array_equal(got, db[offsets[i] : offsets[i + 1]])
-    # device slices are 1024-multiples (the kernel reshapes to (-1, 8, 128))
-    for d in rdb.dev:
-        assert d.shape[0] % 1024 == 0
-    # ladder-rounded: segments share jit shapes (compile tax is per shape)
+    assert rdb.n_segs > 4, rdb.n_segs
+    # layout: every segment array starts at its base and holds whole
+    # sequences; arrays are grain multiples (shared jit shapes)
+    for s, d in enumerate(rdb.dev):
+        lo, hi = int(rdb.seg_base[s]), int(rdb.seg_base[s + 1])
+        np.testing.assert_array_equal(np.asarray(d)[: hi - lo], db[lo:hi])
+        assert d.shape[0] % ResidentDB.DEV_GRAIN == 0
     assert len({int(d.shape[0]) for d in rdb.dev}) <= 2
 
     q = rng.integers(0, 26, 40).astype(np.uint8)
@@ -233,75 +224,48 @@ def test_segmented_resident_db(monkeypatch):
     )[0]
 
     seen_segs = set()
-    import sift4g_tpu.align.pallas_sw as psw
-    orig = psw.sw_scores_pallas_grouped_resident
+    import sift4g_tpu.align.batch as batch_mod
+    orig = batch_mod._grouped_single_fn
 
-    def spy(qc, qo, ql, db_flat, ts, tls, *a, **k):
-        # segment purity: every offset of a launch addresses bytes inside
-        # the segment array it was given
-        assert int(np.asarray(ts).max()) < db_flat.shape[0]
-        assert int(np.asarray(ts).min()) >= 0
-        seen_segs.add(id(db_flat))
-        return orig(qc, qo, ql, db_flat, ts, tls, *a, **k)
+    def spy_factory(impl, resident_npad, *a, **k):
+        fn = orig(impl, resident_npad, *a, **k)
+        if not resident_npad:
+            return fn
 
-    monkeypatch.setattr(psw, "sw_scores_pallas_grouped_resident", spy)
-    with pltpu.force_tpu_interpret_mode():
-        al = BatchAligner(scorer, backend="pallas", b_cap=256, resident=rdb)
-        al._mesh = None
-        got = al.scores_many([(q, targets)])[0]
+        def launch(qc, qo, ql, db_flat, ts, tls, *rest):
+            # segment purity: every offset of a launch addresses bytes
+            # inside the segment array it was given
+            ts_np, tl_np = np.asarray(ts), np.asarray(tls)
+            assert int((ts_np + tl_np).max()) <= db_flat.shape[0]
+            assert int(ts_np.min()) >= 0
+            seen_segs.add(id(db_flat))
+            return fn(qc, qo, ql, db_flat, ts, tls, *rest)
+
+        return launch
+
+    monkeypatch.setattr(batch_mod, "_grouped_single_fn", spy_factory)
+    al = BatchAligner(scorer, backend="pallas", b_cap=256, resident=rdb)
+    al._mesh = None
+    got = al.scores_many([(q, targets)])[0]
     np.testing.assert_array_equal(got, want)
     assert len(seen_segs) == rdb.n_segs  # every segment got its own launch
 
 
-def test_fresh_shapes_dispatch_serially(monkeypatch):
-    """First-time launch shapes compile serially on the main thread (one
-    remote Mosaic compile in flight — docs/PLATFORM.md wedge); repeats of
-    a seen shape go through the overlapping pool."""
-    import threading
-
+def _single_device(monkeypatch):
+    """BatchAligner without a mesh (the conftest provides 8 devices)."""
     import sift4g_tpu.align.batch as batch_mod
-    import sift4g_tpu.align.xla as xla_mod
-    from sift4g_tpu.align.batch import BatchAligner
 
-    class _Dev:
-        platform = "tpu"
+    orig_init = batch_mod.BatchAligner.__init__
 
-    import jax as _jax
-    monkeypatch.setattr(_jax, "devices", lambda *a: [_Dev()])
-    batch_mod._COMPILED_SHAPES.clear()
+    def no_mesh_init(self, *a, **kw):
+        orig_init(self, *a, **kw)
+        self._mesh = None
 
-    calls = []
-    orig = xla_mod.align_scores_grouped_kernel
-
-    def spy(*a, **k):
-        calls.append(threading.current_thread() is threading.main_thread())
-        return orig(*a, **k)
-
-    monkeypatch.setattr(xla_mod, "align_scores_grouped_kernel", spy)
-
-    rng = np.random.default_rng(2)
-    scorer = create_scorer("BLOSUM_62", 10, 1)
-    q = rng.integers(0, 26, 40).astype(np.uint8)
-    # one rung x 1200 targets at b_cap=8 => 150 groups => 3 launches of
-    # the same G_CHUNK=64 shape (fresh + 2 warm repeats)
-    targets = [rng.integers(0, 26, int(n)).astype(np.uint8)
-               for n in rng.integers(20, 120, 1200)]
-    al = BatchAligner(scorer, backend="pallas", b_cap=8)
-    al._mesh = None
-    al.grouped_impl = "xla"
-    got = al.scores_many([(q, targets)])[0]
-
-    from sift4g_tpu.align.dp_numpy import score_pair
-    for i in (0, 17, 1199):
-        assert got[i] == score_pair(q, targets[i], scorer, "SW")
-    assert len(calls) >= 3
-    assert calls[0] is True, "first (fresh) launch must run on main thread"
-    assert not all(calls[1:]), "repeat shapes should use the pool"
-    batch_mod._COMPILED_SHAPES.clear()
+    monkeypatch.setattr(batch_mod.BatchAligner, "__init__", no_mesh_init)
 
 
 def test_auto_gate_reuses_live_upload(tmp_path, monkeypatch):
-    """_maybe_resident_db("auto"): a candidate volume below the slotted
+    """_maybe_resident_db("auto"): a candidate volume below the database
     size normally keeps the slab path, but a LIVE ResidentDB for the same
     database is sunk cost (serve daemon, warm repeats) and is reused."""
     import sift4g_tpu.align.batch as batch_mod
@@ -319,7 +283,10 @@ def test_auto_gate_reuses_live_upload(tmp_path, monkeypatch):
     # non-cpu platform so the auto gate does not bail on platform (the
     # gate does a local `import jax; jax.devices()`)
     class _Dev:
-        platform = "tpu"
+        platform = "gpu"
+
+        def memory_stats(self):
+            return {"bytes_limit": 16 * 2**30}
 
     import jax as _jax
     monkeypatch.setattr(_jax, "devices", lambda *a: [_Dev()])
@@ -341,21 +308,17 @@ def test_auto_gate_reuses_live_upload(tmp_path, monkeypatch):
 
 def test_resident_shard_record_range(tmp_path, monkeypatch):
     """Under a multi-host record_range shard, only the shard slice is
-    slot-packed (shard-local resident layout); alignment records equal
-    the slab path's on the same shard."""
+    uploaded (shard-local resident layout); alignment records equal the
+    slab path's on the same shard."""
     import os
 
     import sift4g_tpu.align.batch as batch_mod
-    import sift4g_tpu.parallel.sharded as sh
     from sift4g_tpu.core.evalue import create_evalue_params
     from sift4g_tpu.core.scorers import create_scorer as mk
     from sift4g_tpu.io.fasta import FastaStream, read_fasta
     from sift4g_tpu.pipeline import align_database
 
-    monkeypatch.setattr(
-        sh, "make_mesh",
-        lambda *a, **k: (_ for _ in ()).throw(RuntimeError("no mesh")),
-    )
+    _single_device(monkeypatch)
     rng = np.random.default_rng(4)
     aas = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", dtype=np.uint8)
     qs = [rng.choice(aas, 90).tobytes() for _ in range(2)]
@@ -387,13 +350,12 @@ def test_resident_shard_record_range(tmp_path, monkeypatch):
     recs = {}
     for mode in ("off", "on"):
         batch_mod._RESIDENT_CACHE.clear()
-        with pltpu.force_tpu_interpret_mode():
-            recs[mode] = align_database(
-                str(tmp_path / "db.fa"), queries,
-                [ix.copy() for ix in indices], scorer, ep, 1e4, 400,
-                backend="pallas", record_range=(lo, hi),
-                resident_db=mode, log=open(os.devnull, "w"),
-            )
+        recs[mode] = align_database(
+            str(tmp_path / "db.fa"), queries,
+            [ix.copy() for ix in indices], scorer, ep, 1e4, 400,
+            backend="pallas", record_range=(lo, hi),
+            resident_db=mode, log=open(os.devnull, "w"),
+        )
     batch_mod._RESIDENT_CACHE.clear()
     assert uploads["n_records"] == hi - lo  # shard slice only
     for a, b in zip(recs["on"], recs["off"]):
@@ -410,14 +372,9 @@ def test_pipeline_resident_outputs_match_slab(tmp_path, monkeypatch):
     import filecmp
     import os
 
-    import sift4g_tpu.parallel.sharded as sh
     from sift4g_tpu.pipeline import PipelineConfig, run_pipeline
 
-    # single-device path: the resident gate requires mesh-less pallas
-    monkeypatch.setattr(
-        sh, "make_mesh",
-        lambda *a, **k: (_ for _ in ()).throw(RuntimeError("no mesh")),
-    )
+    _single_device(monkeypatch)
 
     rng = np.random.default_rng(5)
     aas = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", dtype=np.uint8)
@@ -444,8 +401,7 @@ def test_pipeline_resident_outputs_match_slab(tmp_path, monkeypatch):
             resident_db=mode,
             log=open(os.devnull, "w"),
         )
-        with pltpu.force_tpu_interpret_mode():
-            run_pipeline(cfg)
+        run_pipeline(cfg)
         outs[mode] = sorted(
             f for f in os.listdir(out) if f.endswith(".SIFTprediction")
         )
@@ -458,9 +414,8 @@ def test_pipeline_resident_outputs_match_slab(tmp_path, monkeypatch):
 
 
 def test_mesh_resident_byte_equals_single_device_slab(monkeypatch):
-    """VERDICT r2 item 2a: mesh + resident byte-equals the single-device
-    slab path on a mixed-length batch (xla twin for interpret speed —
-    Mosaic interpret under shard_map is pathologically slow).  Also locks
+    """Mesh + resident byte-equals the single-device slab path on a
+    mixed-length batch (the XLA scan for CPU speed).  Also locks
     the launch accounting: resident launches scale with (rung, G_CHUNK),
     and the G axis stays shardable (G_CHUNK rounds to n_dev)."""
     import jax
@@ -514,10 +469,10 @@ def test_mesh_resident_byte_equals_single_device_slab(monkeypatch):
 
 
 def test_pipeline_mesh_resident_enabled_and_matches(tmp_path, monkeypatch):
-    """VERDICT r2 item 2b: with a mesh present, _maybe_resident_db ENABLES
-    the resident path (the r2 gate refused it), the pipeline runs resident
-    launches under shard_map, and outputs byte-equal resident-off.  The
-    grouped/resident kernels use the exact xla twins (interpret-speed)."""
+    """With a mesh present, _maybe_resident_db ENABLES the resident path,
+    the pipeline runs resident launches under shard_map, and outputs
+    byte-equal resident-off.  The grouped/resident steps use the exact
+    XLA scan (CPU speed)."""
     import filecmp
     import os
 
@@ -526,8 +481,7 @@ def test_pipeline_mesh_resident_enabled_and_matches(tmp_path, monkeypatch):
     from sift4g_tpu.pipeline import PipelineConfig, run_pipeline
 
     # pallas backend picks up the conftest 8-device mesh; substitute the
-    # exact XLA twins for the Mosaic kernels (interpret under shard_map is
-    # pathologically slow — docs/PLATFORM.md)
+    # exact XLA scan for the kernel (CPU speed)
     orig_init = batch_mod.BatchAligner.__init__
 
     def xla_impl_init(self, *a, **kw):

@@ -1,118 +1,95 @@
-"""Multi-chip grouped scoring path on the CPU mesh.
+"""Multi-device grouped scoring path on the CPU mesh.
 
-Strategy: Mosaic interpret mode under shard_map is pathologically slow on
-CPU (minutes per launch at production-like block shapes — measured), so
+* the GPU kernel's composition with shard_map (group axis, slab and
+  resident) is checked directly on small launches in interpret mode;
+* the PACKING + SHARDING + MERGE logic of the production multi-device
+  path (BatchAligner with a mesh) is checked with the exact XLA scan
+  (``grouped_impl="xla"``) on realistic mixed-length batches, for speed.
 
-* the PACKING + SHARDING + MERGE logic of the production multi-chip path
-  (BatchAligner with a mesh) is validated with the exact portable grouped
-  twin (``grouped_impl="xla"``, align/xla.py align_scores_grouped) on
-  realistic mixed-length batches;
-* the Mosaic kernels' composition with shard_map is validated separately
-  on small single-shape launches in interpret mode.
-
-On TPU hardware the production path runs the Mosaic kernels; both
-implementations are exact-integer and property-tested equal.
+On a GPU host the production path runs the kernel; kernel and scan are
+exact-integer and tested equal.
 """
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
-from jax.experimental.pallas import tpu as pltpu
 
 from sift4g_tpu.align.batch import BatchAligner
-from sift4g_tpu.align.xla import PAD_CODE, _extend_matrix, align_scores_kernel
+from sift4g_tpu.align.pallas_sw import sw_scores_pallas_grouped
+from sift4g_tpu.align.xla import PAD_CODE, _extend_matrix
 from sift4g_tpu.core.scorers import create_scorer
 from sift4g_tpu.parallel.sharded import (
-    make_grouped_long_sharded,
+    make_grouped_resident_sharded,
     make_grouped_sharded,
     make_mesh,
-    make_sharded_scores,
-    shard_batch,
 )
 
 
-def test_sharded_pallas_scores_match():
-    """Mosaic kernel inside shard_map (db-sharded single-group scorer)."""
-    rng = np.random.default_rng(3)
-    b, n, m_pad, qlen = 32, 128, 64, 41
-    targets = np.full((b, n), PAD_CODE, dtype=np.int32)
-    lens = rng.integers(1, n, size=b).astype(np.int32)
-    for i in range(b):
-        targets[i, : lens[i]] = rng.integers(0, 26, size=lens[i])
-    q = np.full(m_pad, PAD_CODE, dtype=np.int32)
-    q[:qlen] = rng.integers(0, 26, size=qlen)
-    scorer = create_scorer("BLOSUM_62", 10, 1)
-    m32 = _extend_matrix(scorer.matrix)
-
-    ref = np.asarray(
-        align_scores_kernel(q, np.int32(qlen), targets, lens, m32)
-    )
-    mesh = make_mesh(8)
-    fn = make_sharded_scores(mesh, kernel="pallas")
-    t_dev, l_dev = shard_batch(mesh, targets, lens)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(fn(q, np.int32(qlen), t_dev, l_dev, m32))
-    np.testing.assert_array_equal(got, ref)
-
-
-def test_sharded_grouped_pallas_kernel_matches():
-    """The production grouped Mosaic kernel composes with shard_map over
-    the GROUP axis (one small launch shape; interpret mode)."""
-    from sift4g_tpu.align.pallas_sw import sw_scores_pallas_grouped
-
-    rng = np.random.default_rng(0)
-    G, B, N, qlen = 8, 16, 128, 48
+def _grouped_batch(rng, G, B, N, qlen, lo=5):
     tg = np.full((G, B, N), PAD_CODE, dtype=np.int8)
     tl = np.zeros((G, B), dtype=np.int32)
     for g in range(G):
         for b in range(B):
-            l = int(rng.integers(5, N))
-            tg[g, b, :l] = rng.integers(0, 26, l)
-            tl[g, b] = l
+            ln = int(rng.integers(lo, N))
+            tg[g, b, :ln] = rng.integers(0, 26, ln)
+            tl[g, b] = ln
     q = np.full(64, PAD_CODE, dtype=np.int32)
     q[:qlen] = rng.integers(0, 26, qlen)
-    go = np.zeros(G, np.int32)
-    gl = np.full(G, qlen, np.int32)
-    m32 = np.asarray(_extend_matrix(create_scorer("BLOSUM_62", 10, 1).matrix))
+    return q, np.zeros(G, np.int32), np.full(G, qlen, np.int32), tg, tl
 
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(
-            sw_scores_pallas_grouped(q, go, gl, tg, tl, m32, max_qlen=64, max_sub=11)
-        )
-        fn = make_grouped_sharded(make_mesh(8), max_qlen=64, max_sub=11)
-        got = np.asarray(fn(q, go, gl, tg, tl, m32))
+
+def test_sharded_pallas_scores_match():
+    """The resident kernel under shard_map: replicated database array,
+    group-axis-sharded offsets, equal to the single-device launch."""
+    from sift4g_tpu.align.pallas_sw import sw_scores_pallas_grouped_resident
+
+    rng = np.random.default_rng(3)
+    G, B, qlen = 8, 8, 41
+    lens = rng.integers(1, 128, size=(G, B)).astype(np.int32)
+    db = rng.integers(0, 26, int(lens.sum())).astype(np.uint8)
+    starts = np.concatenate(([0], np.cumsum(lens.reshape(-1))[:-1]))
+    starts = starts.astype(np.int32).reshape(G, B)
+    q = np.full(64, PAD_CODE, dtype=np.int32)
+    q[:qlen] = rng.integers(0, 26, size=qlen)
+    go, gl = np.zeros(G, np.int32), np.full(G, qlen, np.int32)
+    m32 = _extend_matrix(create_scorer("BLOSUM_62", 10, 1).matrix)
+
+    ref = np.asarray(sw_scores_pallas_grouped_resident(
+        q, go, gl, db, starts, lens, m32, 128))
+    fn = make_grouped_resident_sharded(make_mesh(8), n_pad=128)
+    got = np.asarray(fn(q, go, gl, db, starts, lens, m32))
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_sharded_grouped_pallas_kernel_matches():
+    """The production grouped kernel composes with shard_map over the
+    GROUP axis (one small launch shape; interpret mode)."""
+    rng = np.random.default_rng(0)
+    q, go, gl, tg, tl = _grouped_batch(rng, 8, 16, 128, 48)
+    m32 = np.asarray(_extend_matrix(create_scorer("BLOSUM_62", 10, 1).matrix))
+    ref = np.asarray(sw_scores_pallas_grouped(q, go, gl, tg, tl, m32))
+    fn = make_grouped_sharded(make_mesh(8))
+    got = np.asarray(fn(q, go, gl, tg, tl, m32))
     np.testing.assert_array_equal(got, ref)
 
 
 def test_sharded_grouped_long_kernel_matches():
-    """The column-chunked long-target kernel composes with shard_map over
-    the BATCH axis (small n_chunk; interpret mode)."""
-    from sift4g_tpu.align.pallas_sw import sw_scores_pallas_grouped_long
+    """Long targets under the mesh: the same kernel with a long column
+    loop, group-axis sharded, equal to the NumPy oracle."""
+    from sift4g_tpu.align.dp_numpy import score_pair
 
     rng = np.random.default_rng(1)
-    G, B, N, qlen = 1, 16, 256, 40
-    tg = np.full((G, B, N), PAD_CODE, dtype=np.int8)
-    tl = np.zeros((G, B), dtype=np.int32)
-    for b in range(B):
-        l = int(rng.integers(130, N))
-        tg[0, b, :l] = rng.integers(0, 26, l)
-        tl[0, b] = l
-    q = np.full(64, PAD_CODE, dtype=np.int32)
-    q[:qlen] = rng.integers(0, 26, qlen)
-    go = np.zeros(G, np.int32)
-    gl = np.full(G, qlen, np.int32)
-    m32 = np.asarray(_extend_matrix(create_scorer("BLOSUM_62", 10, 1).matrix))
-
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(
-            sw_scores_pallas_grouped_long(
-                q, go, gl, tg, tl, m32, n_chunk=128, m_cap=64
-            )
-        )
-        fn = make_grouped_long_sharded(make_mesh(8), n_chunk=128, m_cap=64)
-        got = np.asarray(fn(q, go, gl, tg, tl, m32))
-    np.testing.assert_array_equal(got, ref)
+    scorer = create_scorer("BLOSUM_62", 10, 1)
+    q, go, gl, tg, tl = _grouped_batch(rng, 8, 4, 768, 12, lo=500)
+    fn = make_grouped_sharded(make_mesh(8))
+    got = np.asarray(fn(q, go, gl, tg, tl, _extend_matrix(scorer.matrix)))
+    want = [
+        [score_pair(q[:12].astype(np.uint8), tg[g, b, : tl[g, b]].astype(np.uint8),
+                    scorer, "SW") for b in range(4)]
+        for g in range(8)
+    ]
+    np.testing.assert_array_equal(got, want)
 
 
 def _mixed_items(rng, n_queries=5, max_tlen=700):
@@ -139,8 +116,8 @@ def _aligner(scorer, mesh=True, backend="pallas", **kw):
 
 
 def test_sharded_grouped_byte_equals_single_device():
-    """VERDICT r1 item 1a: with a mesh, BatchAligner packs the SAME grouped
-    launches as single-chip (rung ladder, adaptive width, native fill),
+    """With a mesh, BatchAligner packs the SAME grouped launches as
+    single-device (rung ladder, adaptive width, native fill),
     shards the group axis, and the scores byte-equal the single-device
     grouped path AND the NumPy oracle on a realistic mixed-length batch."""
     rng = np.random.default_rng(11)
@@ -157,28 +134,28 @@ def test_sharded_grouped_byte_equals_single_device():
 
 
 def test_sharded_long_targets_fall_back_safely():
-    """ADVICE r1 medium: with a mesh, a long-target bucket must not blow
-    the VMEM planes budget — it routes to the db-sharded XLA scan (or the
-    chunked Mosaic kernel on hardware) and stays exact."""
+    """With a mesh, long-target buckets ride the same grouped launches
+    (target length is a loop bound, not a buffer budget) and stay
+    exact."""
     rng = np.random.default_rng(13)
     scorer = create_scorer("BLOSUM_62", 10, 1)
     q = rng.integers(0, 26, 70).astype(np.uint8)
     targets = [
-        rng.integers(0, 26, 2500).astype(np.uint8),   # past the planes budget
+        rng.integers(0, 26, 2500).astype(np.uint8),   # a long rung
         rng.integers(0, 26, 2210).astype(np.uint8),
         rng.integers(0, 26, 140).astype(np.uint8),    # short: grouped kernel
     ]
     ref = BatchAligner(scorer, backend="numpy").scores_many([(q, targets)])[0]
-    al = _aligner(scorer, batch=8)
+    al = _aligner(scorer)
     got = al.scores_many([(q, targets)])[0]
     np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "xla"])
 def test_sharded_launches_scale_with_buckets_not_queries(backend, monkeypatch):
-    """VERDICT r1 item 1c (+ r2 item 8): kernel launches scale with
-    (rung bucket, G_CHUNK) chunks, never with queries x buckets — for
-    BOTH backends, which now share one grouped launch-policy path.
+    """Kernel launches scale with (rung bucket, G_CHUNK) chunks, never
+    with queries x buckets — for BOTH backends, which share one grouped
+    launch-policy path.
 
     Both tail-coalescing policies are asserted: with coalescing OFF each
     rung launches once (2 rungs -> 2 launches); with it ON (production

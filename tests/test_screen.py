@@ -1,4 +1,4 @@
-"""Device-side exact E-value screening (VERDICT r2 item 3).
+"""Device-side exact E-value screening.
 
 The align phase's fetch at many-query scale ships (G, B) score slabs
 whose padding factor is ~2.8x and whose survivor fraction is small;

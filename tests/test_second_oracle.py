@@ -1,6 +1,6 @@
 """The literal scalar second oracle reproduces the frozen goldens.
 
-VERDICT r1 item 7: tests/golden/* were generated by the framework's own
+tests/golden/* were generated by the framework's own
 vectorized float64 path; this test re-derives the prediction files through
 tests/second_oracle.py — an independent loop-for-loop transcription of the
 reference C++ — and byte-compares them against the goldens.  Shared with
@@ -106,7 +106,7 @@ def test_scientific_tables_match_reference_header():
 @pytest.mark.parametrize("name", ["LACI_ECOLI", "PURR_SALTY"])
 def test_second_oracle_reproduces_nw_goldens(name):
     """One non-default aligner mode (NW, global) re-derived end-to-end by
-    the scalar oracle equals its frozen golden (VERDICT r2 item 6)."""
+    the scalar oracle equals its frozen golden."""
     queries = read_fasta(os.path.join(TEST_FILES, "query.fasta"))
     db = os.path.join(TEST_FILES, "sample_protein_database.fa")
     devnull = open(os.devnull, "w")

@@ -91,7 +91,7 @@ def test_daemon_serves_jobs_and_shuts_down(tmp_path):
         # client-side flags must be stripped, not recursed
         r2 = _submit(
             sock,
-            {"argv": base + ["--out", str(out2), "--platform", "tpu"]},
+            {"argv": base + ["--out", str(out2), "--platform", "gpu"]},
         )
         assert r2["status"] == 0, r2.get("log")
         assert r2["job"] == 2, "daemon must persist across jobs"
@@ -123,8 +123,8 @@ def test_daemon_serves_jobs_and_shuts_down(tmp_path):
 
 
 def test_daemon_survives_client_disconnect_midjob(tmp_path):
-    """A client that dies mid-job (the kill -9 scenario, VERDICT r4 weak
-    #2) must not take the daemon down; the abandoned job runs to
+    """A client that dies mid-job (the kill -9 scenario) must not take
+    the daemon down; the abandoned job runs to
     completion (its output files appear) and the next client is served."""
     sock = str(tmp_path / "d.sock")
     env = dict(os.environ)

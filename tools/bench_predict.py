@@ -3,7 +3,7 @@
 Isolates sift/predict_batch.py from the pipeline: generates n-query
 synthetic (n_rows, L) alignment-row arrays with a realistic shape mix,
 then runs predict_matrix_batch twice (cold compile + warm) and prints the
-pack/fetch split.  One TPU process at a time (docs/PLATFORM.md).
+pack/fetch split.  One JAX process per card.
 
   python tools/bench_predict.py --n 20000 [--qchunk 64]
 """
@@ -56,7 +56,7 @@ def main():
         predict_matrix_batch(queries, prepared, args.out, metrics=m)
         dt = time.perf_counter() - t0
         print(f"predict[{tag}] n={args.n} qchunk="
-              f"{os.environ.get('SIFT4G_TPU_PREDICT_QCHUNK', '32')}: "
+              f"{os.environ.get('SIFT4G_TPU_PREDICT_QCHUNK', 'auto')}: "
               f"{dt:.2f}s  "
               + "  ".join(f"{k}={v.get('seconds', 0):.2f}s"
                           for k, v in m.phases.items()),
